@@ -168,8 +168,8 @@ def cmd_bench(args) -> int:
     batch = args.batch
 
     # Ground truth: supplied file, else exact brute force — one
-    # [B, D] @ [D, N] matmul per chunk on the MXU (O(B*N) memory, base
-    # matrix uploaded once).
+    # [B, D] @ [D, N] matmul per chunk at HIGHEST precision (O(B*N)
+    # memory, base matrix uploaded once).
     if args.ground_truth:
         gt = np.load(args.ground_truth)[:, :k]
     else:
@@ -278,6 +278,9 @@ def main(argv=None) -> int:
         c.set_defaults(fn=fn)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

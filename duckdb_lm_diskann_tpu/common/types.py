@@ -1,6 +1,6 @@
 """Common enums and small type helpers.
 
-TPU-native re-design of the reference's ``src/lm_diskann/common/ann.hpp``:
+JAX re-design of the reference's ``src/lm_diskann/common/ann.hpp``:
   - ``LmDiskannMetricType{L2, COSINE, IP, HAMMING}``  (ann.hpp:16-24)
   - ``LmDiskannVectorType{FLOAT32, INT8}``            (ann.hpp:26-32)
   - ``ConvertRawVectorToFloat``                       (ann.hpp:42-62)
@@ -112,7 +112,7 @@ class EdgeType(enum.Enum):
       INT4      - per-edge abs-max scaled 4-bit codes, two per byte: half the
                   HBM and half the gather bandwidth of INT8 (works for all
                   metrics; still finer than the reference's 2-bit ternary).
-                  The TPU-native choice for large L2 indexes — at 1M x R=64
+                  The default choice for large L2 indexes — at 1M x R=64
                   x 128d the INT8 edge cache alone is ~8 GB
       FLOAT32   - uncompressed copy (works for all metrics)
       FLOAT16   - half-precision copy (libSQL F16, lm_diskann.hpp:58; works

@@ -1,6 +1,6 @@
 """Index configuration, parameter validation, and node-block layout.
 
-TPU-native re-design of the reference's ``src/lm_diskann/core/index_config.{hpp,cpp}``:
+JAX re-design of the reference's ``src/lm_diskann/core/index_config.{hpp,cpp}``:
 
   - defaults METRIC=COSINE(ternary)/R=64/L_INSERT=128/ALPHA=1.2/L_SEARCH=100
     (index_config.hpp:32-38)
@@ -11,7 +11,7 @@ TPU-native re-design of the reference's ``src/lm_diskann/core/index_config.{hpp,
   - CalculateLayoutInternal: the on-disk node-block layout
     (index_config.cpp:104-148), reproduced bit-compatibly by
     :class:`NodeLayout` for the persistence codec. The *device* layout is a
-    struct-of-arrays instead (see core/graph.py) — that is the TPU-first
+    struct-of-arrays instead (see core/graph.py) — that is the accelerator
     re-design: "one block read" becomes "one gather row".
 
 The reference derives dimensions + vector type from the column type, never
@@ -61,8 +61,8 @@ def words_per_plane_u64(dimensions: int) -> int:
 
 
 def words_per_plane_u32(dimensions: int) -> int:
-    """Number of 32-bit words per plane in *device* arrays. TPUs have no
-    uint64 vector lanes, so device planes are uint32; to stay bit-compatible
+    """Number of 32-bit words per plane in *device* arrays. Device planes
+    are uint32 (JAX runs 32-bit by default); to stay bit-compatible
     with the u64 on-disk planes we pad to an even number of u32 words
     (2 * ceil(dims/64)), i.e. a u64 word is its two little-endian u32 halves."""
     return 2 * words_per_plane_u64(dimensions)
@@ -170,7 +170,7 @@ class LmDiskannConfig:
     # Edge-cache encoding. None -> metric-dependent default resolved by
     # resolve_edge_type(): TERNARY for COSINE/IP (the reference's implicit
     # choice), INT8 for L2 (the reference forbids TERNARY+L2; libSQL uses
-    # compressed float edges for L2 — INT8 is our TPU-native equivalent).
+    # compressed float edges for L2 — INT8 is our equivalent).
     edge_type: EdgeType | None = None
     # Maximum beam-search hops (fixed loop bound on device). The reference's
     # loop runs until the beam has no unvisited candidate; a visit consumes
@@ -187,10 +187,8 @@ class LmDiskannConfig:
     insert_max_visits: int = 0  # 0 -> resolved to 2 * l_insert
     # Beam width of the INSERT-path candidate search in BATCHED builds (the
     # classic DiskANN beam-width generalization): each while_loop iteration
-    # visits this many nodes. Measured on TPU v5e (100k x 128d, batch 1024):
-    # width 4 builds 2x SLOWER than width 1 — per-iteration cost grows with
-    # W*R (candidate merge + beam membership masks) faster than the
-    # iteration count shrinks, because whole-batch iterations already
+    # visits this many nodes. Per-iteration cost grows with W*R (candidate
+    # merge + beam membership masks) while whole-batch iterations already
     # amortize fixed overheads at B=1024. Default 1; kept configurable for
     # small-batch / low-latency insert workloads where per-hop overhead
     # dominates. Sequential (batch-1) inserts always run width 1 for exact

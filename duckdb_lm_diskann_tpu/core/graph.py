@@ -1,18 +1,19 @@
-"""The in-HBM graph container: LM-DiskANN node blocks as struct-of-arrays.
+"""The device-resident graph container: LM-DiskANN node blocks as
+struct-of-arrays.
 
-TPU-native re-design of the reference's node-block storage
+JAX re-design of the reference's node-block storage
 (core/GraphNode.{hpp,cpp} offset accessors + the rowid->block-pointer map in
 core/GraphManager.hpp:123). The reference keeps one self-contained 4KB block
 per node:
 
     u16 count | node vector | R x row_t ids | R x pos planes | R x neg planes
 
-so that beam search needs exactly one block read per visited node. On TPU the
-same self-containment property is expressed as one *row* across a handful of
-HBM-resident arrays — "one block read" becomes "one gather row", and the
-cached (compressed) neighbor vectors still make frontier scoring possible
-without a second gather (the property libsql/vectordiskann.c:1370-1396
-depends on):
+so that beam search needs exactly one block read per visited node. On the
+accelerator the same self-containment property is expressed as one *row*
+across a handful of device-resident arrays — "one block read" becomes "one
+gather row", and the cached (compressed) neighbor vectors still make
+frontier scoring possible without a second gather (the property
+libsql/vectordiskann.c:1370-1396 depends on):
 
     vectors    f32[C, D]      node vectors (full precision)
     neighbors  i32[C, R]      neighbor *slots*, -1 = empty (the reference
@@ -77,8 +78,8 @@ class GraphArrays(NamedTuple):
 
 def _default_bitonic(env: str | None = None) -> bool:
     """Resolve the hop-merge implementation. One source of truth:
-    ops/topk.default_bitonic (explicit LMD_BITONIC wins; else bitonic on
-    CPU, lax.sort on TPU — profile_hop knockout, 1M scale)."""
+    ops/topk.default_bitonic (explicit LMD_BITONIC wins; else chosen per
+    backend)."""
     from ..ops.topk import default_bitonic
 
     if env is not None:
@@ -112,17 +113,10 @@ class GraphParams:
     # 165-198); its AddNode stores a placeholder cast instead
     # (GraphManager.cpp:98-107, SURVEY Appendix B — done right here).
     node_vtype: VectorType = VectorType.FLOAT32
-    # Frontier-scoring kernel dispatch: "auto" | "1" | "interpret" | "0"
-    # (see experiments/pallas_kernels.dispatch_mode). Static, so flipping it
-    # retraces — the trace-time analog of the reference's GetDotKernel
-    # function-pointer dispatch (ternary_quantization.hpp:562-602).
-    pallas: str = "auto"
     # Hop-merge implementation: True = fused bitonic compare-exchange
     # networks, False = generic lax.sort (exactness-equal; see
-    # ops/topk.merge_beams). Static like `pallas` so bench can A/B both.
-    # Measured (profile_hop knockout, 1M/B=1024): bitonic wins ~25% on
-    # XLA-CPU but loses ~5% on TPU v5e, where lax.sort's merge is only
-    # ~12% of the hop — so the default is backend-dependent.
+    # ops/topk.merge_beams). Static so bench can A/B both; the default
+    # depends on the backend (ops/topk.default_bitonic).
     bitonic: bool = True
 
     @classmethod
@@ -141,7 +135,6 @@ class GraphParams:
             insert_max_visits=config.resolved_insert_max_visits(),
             insert_beam_width=config.insert_beam_width,
             node_vtype=config.node_vector_type,
-            pallas=os.environ.get("LMD_PALLAS", "auto"),
             bitonic=_default_bitonic(os.environ.get("LMD_BITONIC")),
         )
 

@@ -127,8 +127,8 @@ def match_distance_call(expr: Expr):
 def evaluate_distance(
     metric: MetricType, vectors: np.ndarray, query: np.ndarray
 ) -> np.ndarray:
-    """Brute-force scalar-function evaluation over a whole column — one MXU
-    matmul (the seq_scan the optimizer replaces)."""
+    """Brute-force scalar-function evaluation over a whole column — one
+    HIGHEST-precision matmul (the seq_scan the optimizer replaces)."""
     out = all_pairs_distance(
         jnp.asarray(query[None, :], jnp.float32), jnp.asarray(vectors), metric
     )

@@ -1,6 +1,6 @@
 """LmDiskannIndex: the bound-index adapter + scan state.
 
-TPU-native re-design of ``db::LmDiskannIndex`` (src/lm_diskann/db/
+JAX re-design of ``db::LmDiskannIndex`` (src/lm_diskann/db/
 LmDiskannIndex.{hpp,cpp}), the DuckDB BoundIndex adapter that:
 
   - parses WITH (METRIC, R, L_INSERT, ALPHA, L_SEARCH) options (:72-110)

@@ -1,6 +1,6 @@
 """Mini logical-plan IR + the optimizer rewrites of the reference's L5.
 
-TPU-native re-design of the reference's planner/optimizer integration
+JAX re-design of the reference's planner/optimizer integration
 (``src/hnsw/`` — the complete, working module SURVEY §2.2 calls "the model
 for the SQL/planner surface"):
 
@@ -498,9 +498,9 @@ def execute(plan: LogicalOp) -> dict:
         }
 
     if isinstance(plan, LogicalWindow):
-        # Brute-force lateral execution: all-pairs distance (one MXU
-        # matmul) + per-partition rank under the engine's deterministic
-        # (distance, rowid) tie-break — the plan shape the join optimizer
+        # Brute-force lateral execution: all-pairs distance (one
+        # HIGHEST-precision matmul) + per-partition rank under the engine's
+        # deterministic (distance, rowid) tie-break — the plan shape the join optimizer
         # replaces (hnsw_optimize_join.cpp:430-456).
         if plan.function != "row_number" or plan.partition != "__left_row__":
             raise NotImplementedError("only row_number over outer row")

@@ -1,6 +1,6 @@
 """Batched exact-distance kernels (L2 / IP / COSINE).
 
-TPU-native re-design of ``src/lm_diskann/core/distance.hpp``:
+JAX re-design of ``src/lm_diskann/core/distance.hpp``:
 
   - ComputeExactDistanceFloat (distance.hpp:50-105):
       L2     -> sqrt(max(sum((a-b)^2), 0))
@@ -11,10 +11,10 @@ TPU-native re-design of ``src/lm_diskann/core/distance.hpp``:
     with common.types.convert_to_float.
 
 Where the reference computes one scalar distance per call in a pointer loop,
-these kernels are *batched*: pairwise forms feed the VPU, and the
-all-pairs form is a blocked matmul that runs on the MXU — that is the hot
-operator of brute-force scans, exact re-ranking (Searcher.cpp:189-245), and
-the RobustPrune candidate matrices.
+these kernels are *batched*: pairwise forms are elementwise products and
+reductions, and the all-pairs form is one matrix product — the hot operator
+of brute-force scans, exact re-ranking (Searcher.cpp:189-245), and the
+RobustPrune candidate matrices.
 
 All functions are jit-safe pure functions of their inputs.
 """
@@ -64,16 +64,22 @@ def all_pairs_distance(
 ) -> jnp.ndarray:
     """All-pairs distances: queries [B, D] x base [N, D] -> [B, N].
 
-    The MXU path: every metric reduces to one [B, D] @ [D, N] matmul plus
-    rank-1 norm corrections, so XLA tiles it onto the systolic array. This is
-    the engine under brute-force scan (the lm_diskann_match/join macros,
-    hnsw_index_macros.cpp:10-113), exact re-ranking, and RobustPrune's
-    candidate-vs-selected distance matrices.
+    Every metric reduces to one [B, D] @ [D, N] matmul plus rank-1 norm
+    corrections. This is the engine under exact answers: the brute-force
+    scan (the lm_diskann_match/join macros, hnsw_index_macros.cpp:10-113),
+    the no-index join, and recall ground truth. The product runs at
+    ``Precision.HIGHEST``: at default precision a GPU may compute an f32
+    matmul in TF32 (about three decimal digits), which would turn an exact
+    answer into an approximate one.
     """
     q = queries.astype(jnp.float32)
     b = base.astype(jnp.float32)
     dot = jax.lax.dot_general(
-        q, b, (((1,), (1,)), ((), ())), preferred_element_type=jnp.float32
+        q,
+        b,
+        (((1,), (1,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
     )  # [B, N]
     if metric is MetricType.IP:
         return -dot
@@ -98,7 +104,7 @@ def batched_all_pairs_distance(
 
     The RobustPrune inner engine: the reference's O(R^2) scalar
     candidate-vs-selected distance loop (GraphManager.cpp:346-367) becomes a
-    batched [C, D] x [D, C] matmul per target on the MXU.
+    batched [C, D] x [D, C] matmul per target, at the default precision.
     """
     v = vecs.astype(jnp.float32)
     dot = jnp.einsum("tcd,ted->tce", v, v, preferred_element_type=jnp.float32)
@@ -122,7 +128,7 @@ def query_to_neighbors_distance(
 
     The frontier-expansion scoring op for FLOAT32/INT8 edge caches: each beam
     element scores all R cached neighbor vectors from one gathered node row —
-    the TPU equivalent of the per-edge distance loop in
+    the batched form of the per-edge distance loop in
     libsql/vectordiskann.c:1370-1396 (approx distances from in-block
     compressed vectors, no second block fetch).
     """

@@ -7,8 +7,8 @@ real abs-max quantization: per-vector scale = max|v| / 127, symmetric, with
 the scale stored next to the codes; it is the default edge cache for L2
 indexes where ternary codes are invalid (index_config.cpp:93-99).
 
-The int8 x int8 frontier scoring stays integer on the VPU/MXU and rescales
-once at the end.
+Frontier scoring dequantizes the codes in-register (codes * scale) inside
+the distance computation.
 """
 
 from __future__ import annotations
@@ -49,12 +49,8 @@ def words_per_i4(d: int) -> int:
     slot s of word w holds dim s*DW + w (DW = ceil(D/8)), i.e. the D dims
     are split into 8 contiguous chunks and chunk s occupies bit lane
     [4s, 4s+4) of every word. Unpacking is then 8 shift/mask ops whose
-    outputs are already dim-contiguous — no lane interleave. Measured on
-    TPU v5e this halves the frontier edge-score cost vs the byte-
-    interleaved layout (benchmarks/ab_int4_layout.py: 121.5 -> 61.9
-    us/hop at B=1024, R=64, D=128), because XLA lowers the u8 stack/
-    reshape nibble interleave to expensive lane shuffles while the planar
-    form is pure VPU bit math. The HOST/disk block format keeps the
+    outputs are already dim-contiguous — no nibble interleave, pure
+    elementwise bit math. The HOST/disk block format keeps the
     reference-shaped byte-interleaved packing (block_codec.py); the two
     converters below translate at the host<->device boundary."""
     return (d + 7) // 8

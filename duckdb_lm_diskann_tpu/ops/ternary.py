@@ -1,6 +1,6 @@
 """Ternary quantization: sign bit-plane encoding + popcount dot product.
 
-TPU-native re-design of ``src/lm_diskann/core/ternary_quantization.hpp`` —
+JAX re-design of ``src/lm_diskann/core/ternary_quantization.hpp`` —
 the reference's SIMD kernel library (scalar/AVX2/AVX-512/NEON popcount dot,
 ternary_quantization.hpp:269-546, runtime dispatch :562-602).
 
@@ -10,7 +10,7 @@ Encoding (ternary_quantization.hpp:146-199):
     value == 0 -> neither
     dimension d lives at bit (d % 64) of 64-bit word (d / 64).
 
-Device arrays use uint32 words (TPUs have no 64-bit vector lanes). The bit
+Device arrays use uint32 words (JAX runs 32-bit by default). The bit
 layout is the little-endian split of the reference's u64 words: dimension d
 -> bit (d % 32) of u32 word (d / 32), and planes are padded to
 2*ceil(D/64) u32 words, so reinterpreting the u32 plane as u64 words
@@ -21,9 +21,7 @@ Ternary dot product (ternary_quantization.hpp:44):
 
 Where the reference dispatches to one of four hand-written SIMD kernels per
 CPU, here a single expression of bitwise-AND + ``lax.population_count`` + sum
-compiles to the VPU on TPU; the batched frontier-scoring form also has a
-Pallas kernel (experiments/pallas_kernels.py) that fuses the whole
-"gather codes -> popcount dot -> similarity" pipeline.
+serves every backend; XLA fuses it with the gather of the codes it scores.
 """
 
 from __future__ import annotations

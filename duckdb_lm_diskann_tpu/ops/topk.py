@@ -3,7 +3,7 @@
 The reference maintains its beam as a distance-sorted candidate array with
 insertion at the first index whose distance exceeds the new candidate's
 (libsql/vectordiskann.c:1077-1148) and its top-k as a second sorted buffer
-(:1091-1110). On TPU both become whole-array sorts with a pinned
+(:1091-1110). Here both become whole-array sorts with a pinned
 deterministic tie-break — sort by (distance, id) — which is the pinned
 traversal spec that replaces heap pop order (SURVEY §7.3).
 
@@ -24,9 +24,10 @@ def default_bitonic() -> bool:
 
     Explicit LMD_BITONIC wins ("0" = generic lax.sort forms, anything else =
     bitonic networks); otherwise backend-dependent: bitonic on CPU (measured
-    ~25% faster), lax.sort on TPU (bitonic measured ~5% slower — the merge is
-    only ~12% of the TPU hop; benchmarks/profile_hop.py knockout, 1M scale).
-    Resolved lazily, never at import: modules must be import-safe so
+    ~25% faster on XLA-CPU), lax.sort on the GPU, where XLA's sort kernel
+    beat the fused networks in stream QPS on an H100 at the headline shape
+    (chip_smoke.py's merge phase; numbers in PERF.md). Resolved lazily,
+    never at import: modules must be import-safe so
     jax.distributed.initialize() can run before any backend init."""
     env = os.environ.get("LMD_BITONIC")
     if env is not None:
@@ -137,9 +138,7 @@ def bitonic_sort(arrs: tuple, *, descending: bool = False) -> tuple:
 
     ``arrs`` = (dist, ids, *extras); width must be a power of two. A fused
     compare-exchange network — every stage is elementwise ops XLA fuses,
-    bypassing the generic variadic sort kernel that dominates hop cost
-    (see benchmarks/profile_hop.py knockout: the sorted merge is the
-    largest single component of the beam-search hop)."""
+    bypassing the generic variadic sort kernel."""
     width = arrs[0].shape[-1]
     assert width & (width - 1) == 0, "bitonic_sort requires pow2 width"
     lead_ndim = arrs[0].ndim - 1
@@ -222,7 +221,7 @@ def merge_beams(
 ) -> tuple[jnp.ndarray, ...]:
     """Merge two (dist, id, extras...) candidate sets, keep the best ``size``.
 
-    The TPU form of diskAnnSearchCtxInsertCandidate's insert-and-evict-worst
+    The batched form of diskAnnSearchCtxInsertCandidate's insert-and-evict-worst
     (vectordiskann.c:1136-1148) applied to a whole batch of new candidates at
     once: concat -> lexicographic sort -> truncate. Callers must pre-mask
     entries they don't want considered (dist=+inf).

@@ -10,7 +10,7 @@ module provides it:
   - ONE graph, built exactly like the single-chip index (same slots, same
     neighbor lists, same entry point). Its arrays are block-partitioned by
     row across the mesh: global slot g lives on shard g // C_local at local
-    row g % C_local — so HBM per chip is 1/S of the index.
+    row g % C_local — so device memory per card is 1/S of the index.
   - Search is the *unchanged* ``core.searcher.beam_search`` program run
     replicated on every chip inside ``shard_map``. Every row gather becomes
     owner-masked-local-gather + ``psum``: the owning shard contributes the
@@ -21,17 +21,16 @@ module provides it:
     suite asserts ID-exact equality (not overlap).
   - The per-hop cross-chip traffic is the frontier working set (node row +
     R cached edge codes + neighbor validity), a few MB per hop at B=1024 —
-    the candidate-exchange-over-ICI plan of SURVEY §2.4/§5.
+    the candidate-exchange plan of SURVEY §2.4/§5.
 
 Trade-off vs the disjoint mode: per-hop collectives cost latency, so this
-mode is for indexes too large for one chip's HBM where exact single-graph
+mode is for indexes too large for one card's memory where exact single-graph
 semantics are required; the disjoint mode remains the throughput scaler.
 Both modes share all engine code.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import jax
@@ -206,9 +205,6 @@ def global_sharded_search(
 ):
     """The single-graph beam search over row-sharded arrays: the one
     engine program, with every row access routed through PsumRows."""
-    # The Pallas kernels address whole arrays; route scoring through the
-    # jnp gathers (= PsumRows) in this mode.
-    p = dataclasses.replace(params, pallas="0")
     spec = P(DATA_AXIS)
     rep = P()
 
@@ -218,7 +214,7 @@ def global_sharded_search(
             local,
             queries,
             entry_slot,
-            params=p,
+            params=params,
             l_search=l_search,
             k=k,
             beam_width=beam_width,
@@ -310,7 +306,6 @@ def _global_insert_step(
     state, docs/SCALING.md). Results are bit-identical to the single-chip
     build: gathers are exact (x + 0), writes land once, and all arithmetic
     runs at the same shapes in the same order."""
-    p = dataclasses.replace(params, pallas="0")
     spec = P(DATA_AXIS)
     rep = P()
 
@@ -321,7 +316,7 @@ def _global_insert_step(
             new_slots,
             new_vecs,
             entry_slot,
-            params=p,
+            params=params,
             full_visited=full_visited,
             recip_rounds=recip_rounds,
             # same flag the single-chip path passes: True only while no
@@ -331,12 +326,12 @@ def _global_insert_step(
         # Deferred edge-code refresh in the same bounded chunks as
         # insert_batch (per-shard caches are 1/S, so one traced program
         # holds the whole chain comfortably).
-        CH = _pair_chunk(refresh_t.shape[0], p.r, p.dims)
+        CH = _pair_chunk(refresh_t.shape[0], params.r, params.dims)
         for off in range(0, refresh_t.shape[0], CH):
             out = refresh_edge_codes.__wrapped__(
-                out, refresh_t[off : off + CH], params=p
+                out, refresh_t[off : off + CH], params=params
             )
-        out = refresh_edge_codes.__wrapped__(out, refresh_f, params=p)
+        out = refresh_edge_codes.__wrapped__(out, refresh_f, params=params)
         return GraphArrays(*(a.local[None] for a in out))
 
     fn = shard_map(
@@ -417,11 +412,10 @@ def _g_tombstone(stacked: GraphArrays, del_idx, *, mesh) -> GraphArrays:
 def _g_delete_repair_round(
     stacked: GraphArrays, tgt, extra, dels, *, mesh, params: GraphParams
 ) -> GraphArrays:
-    p = dataclasses.replace(params, pallas="0")
 
     def shard_fn(arrays, tgt, extra, dels):
         out = delete_repair_round.__wrapped__(
-            _wrap(arrays), tgt, extra, dels, params=p
+            _wrap(arrays), tgt, extra, dels, params=params
         )
         return _unwrap(out)
 
@@ -447,14 +441,13 @@ def _g_delete_repair_scan(
     carries the row-sharded arrays through the sequential rounds, so the
     per-hop psum row exchange runs per scan step with no host round-trip
     between rounds."""
-    p = dataclasses.replace(params, pallas="0")
 
     def shard_fn(arrays, tgt_stack, extra_stack, dels):
         def body(arr, xs):
             t, e = xs
             return (
                 delete_repair_round.__wrapped__(
-                    arr, t, e, dels, params=p
+                    arr, t, e, dels, params=params
                 ),
                 None,
             )
@@ -482,11 +475,10 @@ def _g_delete_repair_scan(
 def _g_rescue_round(
     stacked: GraphArrays, tgt, sibs, dels, *, mesh, params: GraphParams
 ):
-    p = dataclasses.replace(params, pallas="0")
 
     def shard_fn(arrays, tgt, sibs, dels):
         out, adopters = rescue_orphans_round.__wrapped__(
-            _wrap(arrays), tgt, sibs, dels, params=p
+            _wrap(arrays), tgt, sibs, dels, params=params
         )
         return _unwrap(out), adopters
 
@@ -506,11 +498,10 @@ def _g_rescue_round(
 def _g_refresh(
     stacked: GraphArrays, tgts, *, mesh, params: GraphParams
 ) -> GraphArrays:
-    p = dataclasses.replace(params, pallas="0")
 
     def shard_fn(arrays, tgts):
         return _unwrap(
-            refresh_edge_codes.__wrapped__(_wrap(arrays), tgts, params=p)
+            refresh_edge_codes.__wrapped__(_wrap(arrays), tgts, params=params)
         )
 
     fn = shard_map(
@@ -531,13 +522,12 @@ def _g_force_links(
 ) -> GraphArrays:
     """force_edge_lists + dirty marking over the sharded tables (the
     repair_reachability write step)."""
-    p = dataclasses.replace(params, pallas="0")
 
     def shard_fn(arrays, adopters, orphans):
         local = _wrap(arrays)
         nbrs = force_edge_lists(
             local.vectors, local.neighbors, adopters,
-            jnp.where(adopters >= 0, orphans, -1), p,
+            jnp.where(adopters >= 0, orphans, -1), params,
         )[0]
         cap = local.capacity
         dirty = local.dirty_rows.at[

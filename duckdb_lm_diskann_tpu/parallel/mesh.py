@@ -1,10 +1,11 @@
 """Device-mesh helpers for the sharded index.
 
 The reference is single-node/single-process by construction (SURVEY §2.4:
-no NCCL/MPI/network code anywhere); the TPU-native scaling axis is
-*database-size sharding*: hash/range-partitioned HBM-resident shards over a
-``jax.sharding.Mesh``, per-shard local beam search, and cross-shard top-k
-merge over ICI collectives (SURVEY §5 "distributed communication backend").
+no NCCL/MPI/network code anywhere); the scaling axis here is
+*database-size sharding*: hash/range-partitioned device-resident shards over
+a ``jax.sharding.Mesh``, per-shard local beam search, and cross-shard top-k
+merge over collectives (SURVEY §5 "distributed communication backend").
+The cards of one host are joined all to all, so the mesh is one flat axis.
 """
 
 from __future__ import annotations

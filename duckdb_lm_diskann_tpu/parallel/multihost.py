@@ -1,4 +1,4 @@
-"""Multi-host (pod-slice) scaling: jax.distributed entry + global-mesh index.
+"""Multi-host scaling: jax.distributed entry + global-mesh index.
 
 The reference is single-node by construction (SURVEY §2.4/§5: no
 NCCL/MPI/network code anywhere); this is the new surface SURVEY §7.2 M5
@@ -6,20 +6,20 @@ mandates. Design:
 
   - **Entry path**: every process calls :func:`initialize_distributed`
     (``jax.distributed.initialize``) before first JAX use; afterwards
-    ``jax.devices()`` is the *global* device list and SPMD programs span the
-    pod slice.
+    ``jax.devices()`` is the *global* device list and SPMD programs span
+    every host.
   - **Placement**: the shard axis of :class:`~.sharded.StackedGraphArrays`
     is laid out over a mesh of ALL global devices in process-major order
-    (``jax.devices()`` ordering), so the shards owned by one host's chips
+    (``jax.devices()`` ordering), so the shards owned by one host's cards
     are mesh-adjacent.
-  - **ICI/DCN split**: the only cross-device communication in
+  - **Intra-/inter-host split**: the only cross-device communication in
     :func:`~.sharded.sharded_search` is the final ``all_gather`` of
     ``[B, k]`` (rowid, dist) tuples over the data axis. With process-major
-    placement XLA lowers it hierarchically: the intra-host phase rides ICI
-    (chip-to-chip), and only the tiny per-host top-k union crosses DCN.
-    Corpus loading and graph build are host-local (each process builds only
-    the subgraphs of its own chips — DCN never sees vectors or graph
-    blocks); checkpointing is likewise per-process, shard-parallel.
+    placement the intra-host phase stays between a host's own cards, and
+    only the tiny per-host top-k union crosses the network. Corpus loading
+    and graph build are host-local (each process builds only the subgraphs
+    of its own cards — the network never sees vectors or graph blocks);
+    checkpointing is likewise per-process, shard-parallel.
   - **Dataset partitioning**: global round-robin over the shard axis
     (:func:`~.sharded.partition_rows`); a process materializes only the
     partitions assigned to its local devices, then
@@ -29,7 +29,7 @@ mandates. Design:
 On CPU the same code runs multi-process via Gloo collectives
 (``jax_cpu_collectives_implementation``), which is how
 tests/test_multihost.py proves the cross-process search compiles and merges
-without TPU hardware (SURVEY §4: "multi-host tests runnable on CPU via
+without accelerators (SURVEY §4: "multi-host tests runnable on CPU via
 jax.distributed").
 """
 
@@ -61,10 +61,11 @@ def initialize_distributed(
 ) -> None:
     """The multi-host entry path: call once per process before first JAX use.
 
-    On TPU pods the three None defaults auto-discover from the environment
-    (the standard ``jax.distributed.initialize()`` contract). On CPU pass
-    all three plus ``cpu_collectives="gloo"`` (tests) — Gloo backs the
-    cross-process collectives that ICI/DCN provide on real slices.
+    Where the cluster environment tells JAX the topology, the three None
+    defaults auto-discover it (the standard ``jax.distributed.initialize()``
+    contract); otherwise pass all three. On CPU also pass
+    ``cpu_collectives="gloo"`` (tests) — Gloo backs the cross-process
+    collectives that NCCL provides between GPUs.
     """
     if cpu_collectives is not None:
         jax.config.update("jax_cpu_collectives_implementation", cpu_collectives)
@@ -81,7 +82,7 @@ def initialize_distributed(
 def make_global_mesh(axis: str = DATA_AXIS) -> Mesh:
     """One mesh axis over every device of every process, process-major (so
     intra-host neighbors are mesh-adjacent and the all_gather's intra-host
-    phase stays on ICI)."""
+    phase stays between a host's own cards)."""
     return Mesh(np.asarray(jax.devices()), (axis,))
 
 

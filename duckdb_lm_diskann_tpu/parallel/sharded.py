@@ -1,17 +1,17 @@
 """Sharded index: multi-chip search and build over a device mesh.
 
-TPU-native scaling design (SURVEY §5 / §7.2 M4-M5; the reference has no
+Scaling design (SURVEY §5 / §7.2 M4-M5; the reference has no
 distributed story to copy — this is new surface):
 
   - The vector set is hash/round-robin partitioned into S shards; each shard
-    is an independent LM-DiskANN subgraph whose arrays live in one chip's
-    HBM (``StackedGraphArrays``: every field gains a leading [S] dim sharded
+    is an independent LM-DiskANN subgraph whose arrays live in one card's
+    memory (``StackedGraphArrays``: every field gains a leading [S] dim sharded
     over the mesh's 'data' axis).
   - Search: queries are replicated; every chip runs the SAME batched beam
     search on its local subgraph inside ``shard_map`` (hops are lock-step
     compiled code, no cross-chip traffic), then per-shard top-k candidate
     sets — (global rowid, exact distance) tuples — are exchanged with ONE
-    ``all_gather`` over ICI and merged with the deterministic (dist, id)
+    ``all_gather`` and merged with the deterministic (dist, id)
     sort. Exactly the candidate-exchange plan of SURVEY §2.4/§5.
   - Result equivalence: every visited node's distance is exact at visit and
     the final merge is a global sort, so the union-of-shards top-k equals
@@ -23,7 +23,8 @@ distributed story to copy — this is new surface):
     shards never exchange build traffic (their subgraphs are disjoint).
 
 The same code paths compile for any mesh size — 8 virtual CPU devices in
-tests, real multi-chip TPU slices in production.
+tests, the GPUs of a host in production. Each shard's coordinator builds and
+mutates on the mesh device that holds the shard.
 """
 
 from __future__ import annotations
@@ -109,6 +110,11 @@ class ShardedIndex:
         self._dirty_shards: set[int] = set(range(self.n_shards))
         self._stacked_cap = 0
 
+    def _on_shard_device(self, s: int):
+        """Run shard ``s``'s coordinator work on the mesh device that holds
+        the shard, so each card builds and keeps only its own rows."""
+        return jax.default_device(self.mesh.devices.flat[s])
+
     def _invalidate(self, shards) -> None:
         self._stacked = None
         self._dirty_shards.update(shards)
@@ -119,9 +125,11 @@ class ShardedIndex:
         parts = partition_rows(len(rowids), self.n_shards)
         for s, part in enumerate(parts):
             if len(part):
-                self.coordinators[s].bulk_build(
-                    rowids[part].tolist(), vectors[part], max_batch=max_batch
-                )
+                with self._on_shard_device(s):
+                    self.coordinators[s].bulk_build(
+                        rowids[part].tolist(), vectors[part],
+                        max_batch=max_batch,
+                    )
         self._invalidate(range(self.n_shards))
 
     def insert(self, rowids, vectors: np.ndarray) -> None:
@@ -132,9 +140,10 @@ class ShardedIndex:
         touched = []
         for s, part in zip(order, parts):
             if len(part):
-                self.coordinators[s].insert(
-                    [int(rowids[i]) for i in part], vectors[part]
-                )
+                with self._on_shard_device(int(s)):
+                    self.coordinators[s].insert(
+                        [int(rowids[i]) for i in part], vectors[part]
+                    )
                 touched.append(int(s))
         self._invalidate(touched)
 
@@ -142,7 +151,8 @@ class ShardedIndex:
         n = 0
         touched = []
         for s, c in enumerate(self.coordinators):
-            d = c.delete(rowids)
+            with self._on_shard_device(s):
+                d = c.delete(rowids)
             if d:
                 touched.append(s)
             n += d
@@ -268,7 +278,7 @@ def sharded_search(
     k: int,
     assume_all_valid: bool = False,
 ):
-    """Per-shard local beam search + ONE all-gather top-k merge over ICI.
+    """Per-shard local beam search + ONE all-gather top-k merge.
 
     Inside shard_map each chip sees its own [1, ...] slice of the stacked
     state; the only cross-chip communication is the final all_gather of

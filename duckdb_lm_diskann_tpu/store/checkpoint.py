@@ -1,6 +1,6 @@
 """Checkpoint / load orchestration: graph.lmd + shadow store, two-phase merge.
 
-TPU-native re-design of the reference's persistence story:
+JAX re-design of the reference's persistence story:
 
   - Coordinator::SaveIndex/LoadIndex -> StorageManager::SaveIndexContents/
     LoadIndexContents (Coordinator.cpp:239-317; stubbed in the reference at

@@ -2,12 +2,12 @@
 
 SURVEY §7.2 M5 calls for "roofline accounting per operator (bytes from HBM
 per hop vs MXU FLOPs)". The reference has no analog (its per-node cost model
-is one 4 KB disk page per visit, paper §IV); on TPU the equivalent
-first-principles model is bytes gathered from HBM per hop versus the chip's
-HBM bandwidth, because frontier scoring is far below MXU intensity
-(R-way dot products per gathered row — arithmetic intensity < 2 FLOP/byte
-for every edge codec, so the hot loop is bandwidth/overhead bound, never
-MXU bound).
+is one 4 KB disk page per visit, paper §IV); on an accelerator the
+equivalent first-principles model is bytes gathered from device memory per
+hop versus the card's memory bandwidth, because frontier scoring is far
+below matrix-unit intensity (R-way dot products per gathered row —
+arithmetic intensity < 2 FLOP/byte for every edge codec, so the hot loop is
+bandwidth/overhead bound, never compute bound).
 
 The model counts the IRREDUCIBLE graph-data traffic — the LM-DiskANN
 "one self-contained block per visit" property mapped to SoA gather rows:
@@ -23,7 +23,8 @@ Real hops also pay XLA op-dispatch overheads the model deliberately
 excludes — the printed `sol_fraction` (measured speed-of-light fraction)
 is exactly the headroom left for kernel-level work.
 
-Device presets are nominal public figures; override via ``hbm_gbps``.
+Peak bandwidths are published figures, keyed by ``device_kind``; a device
+that is not in the table is an error, never a default.
 """
 
 from __future__ import annotations
@@ -33,16 +34,11 @@ import dataclasses
 from ..common.types import EdgeType, VectorType
 from ..core.graph import GraphParams
 
-# Nominal HBM bandwidth (GB/s). v5e: 819 GB/s, v4: 1228, v5p: 2765.
+# Published device-memory bandwidth (GB/s) by jax ``device_kind``.
+# H100 SXM5 80 GB: 3.35 TB/s (NVIDIA H100 Tensor Core GPU data sheet).
 DEVICE_HBM_GBPS = {
-    "v5e": 819.0,
-    "v5 lite": 819.0,  # jax device_kind spells v5e "TPU v5 lite"
-    "v5p": 2765.0,
-    "v4": 1228.0,
-    "v6e": 1640.0,
-    "v6 lite": 1640.0,  # Trillium device_kind spelling
+    "NVIDIA H100 80GB HBM3": 3350.0,
 }
-DEFAULT_HBM_GBPS = 819.0
 
 
 def edge_code_bytes(params: GraphParams) -> int:
@@ -92,7 +88,7 @@ def hop_roofline(
     l_search: int,
     beam_width: int = 1,
     mean_visits: float | None = None,
-    hbm_gbps: float = DEFAULT_HBM_GBPS,
+    hbm_gbps: float,
 ) -> HopRoofline:
     """Per-hop byte/FLOP accounting + speed-of-light QPS.
 
@@ -138,9 +134,12 @@ def hop_roofline(
 
 
 def device_hbm_gbps(device_kind: str) -> float:
-    """Map a jax device_kind string to nominal HBM bandwidth."""
-    kind = device_kind.lower()
-    for key, bw in DEVICE_HBM_GBPS.items():
-        if key in kind:
-            return bw
-    return DEFAULT_HBM_GBPS
+    """Published memory bandwidth of a jax ``device_kind``; raises
+    ValueError for a device the table does not list."""
+    try:
+        return DEVICE_HBM_GBPS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published memory bandwidth for device kind {device_kind!r}; "
+            f"known: {sorted(DEVICE_HBM_GBPS)}"
+        ) from None

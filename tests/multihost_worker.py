@@ -2,7 +2,7 @@
 runnable on CPU via jax.distributed + forked workers).
 
 Each worker is one "host" with 2 virtual CPU devices; Gloo backs the
-cross-process collectives that ICI/DCN provide on a real pod slice.
+cross-process collectives that NCCL provides between GPUs.
 
 Usage: python multihost_worker.py <proc_id> <n_procs> <addr> <out.json>
 """

@@ -1,6 +1,6 @@
 """Pure-NumPy oracle implementation of the LM-DiskANN algorithm.
 
-This is the executable specification the JAX/TPU engine is validated against
+This is the executable specification the JAX engine is validated against
 — the role SURVEY §4 assigns to "graph-semantics tests against a NumPy/pure-
 JAX oracle implementing the libSQL algorithm".
 

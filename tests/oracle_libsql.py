@@ -6,7 +6,7 @@ This is deliberately a *second* oracle, distinct from tests/oracle.py:
 
   - tests/oracle.py is the ENGINE's executable spec — it pins the pinned
     (distance, id) tie-break, eager zombie filtering, sorted reciprocal
-    passes and delete-time connectivity repair that the TPU engine
+    passes and delete-time connectivity repair that the JAX engine
     implements (documented deviations, PARITY.md).
   - THIS module replicates the reference's exact behaviors instead:
     insertion-ordered candidate arrays (ties keep arrival order), lazy

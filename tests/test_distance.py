@@ -97,3 +97,31 @@ def test_similarity_to_distance_mapping():
     )
     with pytest.raises(ValueError, match="L2"):
         similarity_to_distance(sim, MetricType.L2)
+
+
+def _dot_precisions(jaxpr):
+    """precision params of every dot_general in a (closed) jaxpr."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append(eqn.params["precision"])
+        for sub in eqn.params.values():
+            if hasattr(sub, "jaxpr"):
+                out.extend(_dot_precisions(sub.jaxpr))
+    return out
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_all_pairs_runs_at_highest_precision(metric):
+    # Exact answers (brute-force scan, no-index join, recall ground truth)
+    # come from this product; at default precision a GPU may run an f32
+    # matmul in TF32.
+    import jax
+
+    q = jnp.zeros((4, 16), jnp.float32)
+    base = jnp.zeros((32, 16), jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda a, b: all_pairs_distance(a, b, metric))(q, base)
+    precisions = _dot_precisions(jaxpr.jaxpr)
+    assert len(precisions) == 1
+    highest = jax.lax.Precision.HIGHEST
+    assert precisions[0] in ((highest, highest), highest)

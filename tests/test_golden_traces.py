@@ -179,7 +179,7 @@ def test_engine_matches_reference_search(name):
         dims=m["dims"], r=R, metric=MetricType.parse(m["metric"]),
         edge_type=EdgeType.FLOAT32, alpha=m["alpha_x1000"] / 1000.0,
         l_insert=m["insert_l"], l_search=m["search_l"],
-        max_visits=8 * m["search_l"], pallas="0",
+        max_visits=8 * m["search_l"],
     )
     cap = len(rowids)
     arrays = make_graph_arrays(params, cap)

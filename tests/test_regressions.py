@@ -139,7 +139,7 @@ def test_insert_rollback_clears_valid_and_defers_recycling(rng, monkeypatch):
 def test_assume_all_valid_fast_path_is_bit_identical(rng):
     """On a never-tombstoned index the validity gather is the identity, so
     the fast path (assume_all_valid=True, skipping the [B*R] element
-    gather that dominates the hop on TPU) must return bit-identical
+    gather) must return bit-identical
     results to the eager path; the first delete must flip the coordinator
     off the fast path and keep excluding tombstoned rows."""
     import jax.numpy as jnp

@@ -1,7 +1,7 @@
 """Roofline accounting arithmetic (utils/roofline.py — SURVEY M5's
 bytes-per-hop vs bandwidth model)."""
 
-import numpy as np
+import pytest
 
 from duckdb_lm_diskann_tpu.common.types import EdgeType, MetricType, VectorType
 from duckdb_lm_diskann_tpu.core.graph import GraphParams
@@ -40,28 +40,37 @@ def test_hop_roofline_headline_config():
     # The benchmarked headline: 1M x 128d INT4, B=1024, L=100, W=1.
     p = make_params(EdgeType.INT4)
     rl = hop_roofline(p, batch=1024, l_search=100, mean_visits=104.0,
-                      hbm_gbps=819.0)
+                      hbm_gbps=3350.0)
     # gather = B*(D*4 + R*4 + R + R*68) = 1024*(512+256+64+4352) = 5,308,416
     assert rl.gather_bytes == 1024 * (512 + 256 + 64 + 64 * 68)
     # state = beam (B*L*9*2) + merge (B*164*12*2)
     assert rl.state_bytes == 1024 * 100 * 9 * 2 + 1024 * 164 * 12 * 2
-    # SoL hop time ~= bytes / BW: at ~9.3 MB/hop and 819 GB/s, ~11 us.
-    assert 5 < rl.sol_hop_us < 20
-    # SoL QPS = B / (hops * hop_s); measured 6910 QPS -> fraction well < 1.
-    assert rl.sol_qps > 100_000
-    assert 0 < 6910 / rl.sol_qps < 0.2
+    # SoL hop time = bytes / BW: ~11.2 MB/hop at 3.35 TB/s, ~3.3 us.
+    want_us = (rl.gather_bytes + rl.state_bytes) / 3350e9 * 1e6
+    assert rl.sol_hop_us == pytest.approx(want_us)
+    assert 3 < rl.sol_hop_us < 4
+    # SoL QPS = B / (hops * hop_s), 104 one-visit hops per query.
+    assert rl.sol_qps == pytest.approx(1024 / (104 * want_us * 1e-6))
 
 
 def test_int8_node_vectors_cut_vector_bytes():
-    f32 = hop_roofline(make_params(EdgeType.INT4), batch=64, l_search=100)
+    f32 = hop_roofline(make_params(EdgeType.INT4), batch=64, l_search=100,
+                       hbm_gbps=3350.0)
     i8 = hop_roofline(
         make_params(EdgeType.INT4, vtype=VectorType.INT8),
-        batch=64, l_search=100,
+        batch=64, l_search=100, hbm_gbps=3350.0,
     )
     assert f32.gather_bytes - i8.gather_bytes == 64 * 128 * 3
 
 
 def test_device_kind_mapping():
-    assert device_hbm_gbps("TPU v5 lite0") == 819.0
-    assert device_hbm_gbps("TPU v4") == 1228.0
-    assert device_hbm_gbps("cpu") == 819.0  # default
+    # H100 SXM5 80 GB, as jax reports its device_kind; NVIDIA data sheet.
+    assert device_hbm_gbps("NVIDIA H100 80GB HBM3") == 3350.0
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_unknown_device_kind_raises(kind):
+    # No default peak: dividing by some other device's bandwidth would
+    # misstate every roofline share.
+    with pytest.raises(ValueError, match="no published memory bandwidth"):
+        device_hbm_gbps(kind)

@@ -120,6 +120,22 @@ def test_sharded_dynamic_insert_delete(rng):
     assert ids[0, 0] != 9999
 
 
+def test_shards_build_and_mutate_on_their_own_devices(rng):
+    # Each card must hold only its own shard: a shard built on the default
+    # device would put every shard's rows on card 0.
+    dims = 12
+    cfg = make_config(dims)
+    data = clustered_data(rng, 200, dims, n_clusters=8)
+    mesh = make_mesh(4)
+    idx = ShardedIndex(cfg, mesh=mesh)
+    idx.build(np.arange(200), data)
+    idx.insert([9999], data[:1] + 0.001)
+    idx.delete([3, 9999])
+    for dev, c in zip(mesh.devices.flat, idx.coordinators):
+        for a in c.arrays:
+            assert a.devices() == {dev}
+
+
 def test_sharded_insert_step_compiles_and_runs(rng):
     """The device-only build step under shard_map (the multi-chip 'training
     step' dryrun path)."""
